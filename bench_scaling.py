@@ -1,12 +1,12 @@
 """Weak-scaling efficiency harness for the sharded SVGD step.
 
 BASELINE.md scaling target: >=80% efficiency in particle-updates/s from 1
-to N workers. Real multi-chip hardware is not available in this image, so
-this harness runs on the simulated host-platform device mesh
+to N workers. By default this harness runs on the simulated host-platform
+device mesh
 (xla_force_host_platform_device_count): collectives execute for real
 (as memcpys), giving an upper bound on orchestration overhead and a
-regression guard on the collective schedule. On a real pod slice the same
-script runs unchanged with JAX_PLATFORMS unset.
+regression guard on the collective schedule. On real GPUs set
+BENCH_SCALING_REAL=1.
 
 Weak scaling: per-device particle count is fixed, so each device's local
 work O((n/D) * n) grows linearly with D. The scale-invariant metric is
@@ -42,8 +42,8 @@ if os.environ.get("BENCH_SCALING_REAL") != "1":
 
 import numpy as np  # noqa: E402
 
-import svgdcpp_tpu as sv  # noqa: E402
-from svgdcpp_tpu.parallel import (  # noqa: E402
+import svgdcpp_jax as sv  # noqa: E402
+from svgdcpp_jax.parallel import (  # noqa: E402
     ShardedSVGD,
     ShardedSVGDConfig,
     make_particle_mesh,
@@ -56,7 +56,7 @@ def measure(n_devices: int, phi_mode: str = "gather",
     (N_PER_DEVICE rows per device); a fixed value = strong scaling."""
     devices = jax.devices()[:n_devices]
     mesh = make_particle_mesh(devices)
-    from svgdcpp_tpu.utils.workloads import flagship_mvn
+    from svgdcpp_jax.utils.workloads import flagship_mvn
 
     n = N_PER_DEVICE * n_devices if n_global is None else int(n_global)
     dim = 2
@@ -154,11 +154,14 @@ def main():
             # On the simulated mesh D "devices" time-slice the host's
             # physical cores, so perfect collective scaling still caps
             # per-device efficiency at min(1, cores/D): report efficiency
-            # against that ceiling (the ICI-overhead proxy) too.
+            # against that ceiling (the collective-overhead proxy) too.
             ceiling = min(1.0, cores / d)
             line["vs_host_ceiling"] = round(eff / ceiling, 3)
         print(json.dumps(line))
 
 
 if __name__ == "__main__":
+    from svgdcpp_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

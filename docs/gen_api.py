@@ -21,35 +21,36 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 MODULES = [
-    "svgdcpp_tpu",
-    "svgdcpp_tpu.svgd",
-    "svgdcpp_tpu.models.model",
-    "svgdcpp_tpu.models.multivariate_normal",
-    "svgdcpp_tpu.models.bayesian_logistic_regression",
-    "svgdcpp_tpu.models.binomial_likelihood",
-    "svgdcpp_tpu.kernels.kernel",
-    "svgdcpp_tpu.kernels.gaussian_rbf",
-    "svgdcpp_tpu.kernels.algebra",
-    "svgdcpp_tpu.optimizers.base",
-    "svgdcpp_tpu.optimizers.adam",
-    "svgdcpp_tpu.optimizers.adagrad",
-    "svgdcpp_tpu.optimizers.rmsprop",
-    "svgdcpp_tpu.optimizers.optax_adapter",
-    "svgdcpp_tpu.ops.phi",
-    "svgdcpp_tpu.ops.pairwise",
-    "svgdcpp_tpu.ops.median",
-    "svgdcpp_tpu.ops.ksd",
-    "svgdcpp_tpu.ops.pallas_phi",
-    "svgdcpp_tpu.parallel.mesh",
-    "svgdcpp_tpu.parallel.sharded",
-    "svgdcpp_tpu.parallel.ring",
-    "svgdcpp_tpu.core.types",
-    "svgdcpp_tpu.core.exceptions",
-    "svgdcpp_tpu.utils.checkpoint",
-    "svgdcpp_tpu.utils.logging",
-    "svgdcpp_tpu.utils.profiling",
-    "svgdcpp_tpu.utils.native",
-    "svgdcpp_tpu.utils.workloads",
+    "svgdcpp_jax",
+    "svgdcpp_jax.svgd",
+    "svgdcpp_jax.models.model",
+    "svgdcpp_jax.models.multivariate_normal",
+    "svgdcpp_jax.models.bayesian_logistic_regression",
+    "svgdcpp_jax.models.binomial_likelihood",
+    "svgdcpp_jax.kernels.kernel",
+    "svgdcpp_jax.kernels.gaussian_rbf",
+    "svgdcpp_jax.kernels.algebra",
+    "svgdcpp_jax.optimizers.base",
+    "svgdcpp_jax.optimizers.adam",
+    "svgdcpp_jax.optimizers.adagrad",
+    "svgdcpp_jax.optimizers.rmsprop",
+    "svgdcpp_jax.optimizers.optax_adapter",
+    "svgdcpp_jax.ops.phi",
+    "svgdcpp_jax.ops.pairwise",
+    "svgdcpp_jax.ops.median",
+    "svgdcpp_jax.ops.ksd",
+    "svgdcpp_jax.ops.pallas_phi",
+    "svgdcpp_jax.parallel.mesh",
+    "svgdcpp_jax.parallel.sharded",
+    "svgdcpp_jax.parallel.ring",
+    "svgdcpp_jax.core.types",
+    "svgdcpp_jax.core.exceptions",
+    "svgdcpp_jax.utils.checkpoint",
+    "svgdcpp_jax.utils.compile_cache",
+    "svgdcpp_jax.utils.logging",
+    "svgdcpp_jax.utils.profiling",
+    "svgdcpp_jax.utils.native",
+    "svgdcpp_jax.utils.workloads",
 ]
 
 
@@ -145,7 +146,7 @@ def main(outdir=None) -> Path:
     out = Path(outdir) if outdir else ROOT / "docs" / "api"
     out.mkdir(parents=True, exist_ok=True)
     index = [
-        "# svgdcpp_tpu API reference",
+        "# svgdcpp_jax API reference",
         "",
         "Generated by `python docs/gen_api.py` (no external doc toolchain in",
         "the image — the analog of the reference's Doxygen build,",
@@ -154,9 +155,9 @@ def main(outdir=None) -> Path:
     ]
     import importlib
 
-    pkg = importlib.import_module("svgdcpp_tpu")
+    pkg = importlib.import_module("svgdcpp_jax")
     exports = sorted(n for n in getattr(pkg, "__all__", dir(pkg)) if _is_public(n))
-    index.append("## Top-level exports (`import svgdcpp_tpu as sv`)")
+    index.append("## Top-level exports (`import svgdcpp_jax as sv`)")
     index.append("")
     index.append(", ".join(f"`{n}`" for n in exports))
     index.append("")

@@ -11,8 +11,8 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-import svgdcpp_tpu as sv
-from svgdcpp_tpu.models.bayesian_logistic_regression import (
+import svgdcpp_jax as sv
+from svgdcpp_jax.models.bayesian_logistic_regression import (
     make_synthetic_classification,
 )
 
@@ -53,4 +53,7 @@ def run(num_particles=1000, num_iterations=500, dim=50, n_data=1024, seed=0,
 
 
 if __name__ == "__main__":
+    from svgdcpp_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     run()

@@ -15,7 +15,7 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-import svgdcpp_tpu as sv
+import svgdcpp_jax as sv
 
 
 def run(num_particles=10, num_iterations=1000, seed=0, verbose=True):
@@ -55,4 +55,7 @@ def run(num_particles=10, num_iterations=1000, seed=0, verbose=True):
 
 
 if __name__ == "__main__":
+    from svgdcpp_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     run()

@@ -141,5 +141,8 @@ def main(outdir=None, quick=False):
 
 
 if __name__ == "__main__":
+    from svgdcpp_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args = [a for a in sys.argv[1:] if a != "--quick"]
     main(*args, quick="--quick" in sys.argv[1:])

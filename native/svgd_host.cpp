@@ -1,6 +1,6 @@
-// Host-side native helpers for svgdcpp_tpu.
+// Host-side native helpers for svgdcpp_jax.
 //
-// The TPU compute path is JAX/XLA/Pallas; these are the host-runtime pieces
+// The device compute path is JAX/XLA/Pallas; these are the host-runtime pieces
 // where native code genuinely wins over Python:
 //
 //   * selection (k-th element / median with the reference library's

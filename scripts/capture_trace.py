@@ -1,10 +1,9 @@
-"""Capture a jax.profiler trace of the flagship step on the real chip.
+"""Capture a jax.profiler trace of the flagship step on the GPU.
 
-Addresses the "self-graded roofline" gap: commits hard evidence of where a
-step's time goes. Writes a perfetto/xplane trace directory plus a
-one-line summary of the measured step time.
+Evidence of where a step's time goes: writes a perfetto/xplane trace
+directory plus a one-line summary of the measured step time.
 
-    python scripts/capture_trace.py [outdir=docs/traces] [n=10000] [impl=auto] [config=mvn]
+    python scripts/capture_trace.py [outdir=build/traces] [n=10000] [impl=auto] [config=mvn]
 
 config=hier traces the composed-adaptive-kernel workload (the
 fused_terms_pallas path) instead of the flagship MVN. The trace directory
@@ -21,10 +20,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
-def main(outdir="docs/traces", n="10000", impl="auto", config="mvn"):
+def main(outdir="build/traces", n="10000", impl="auto", config="mvn"):
     import jax
 
-    import svgdcpp_tpu as sv
+    import svgdcpp_jax as sv
 
     n = int(n)
     out = Path(outdir)
@@ -44,8 +43,7 @@ def main(outdir="docs/traces", n="10000", impl="auto", config="mvn"):
             steps_per_call=10,
         )
     elif config == "blr":
-        # BASELINE config 3's shape family (d=50): the small-n roofline
-        # regime (VERDICT r3 item 3).
+        # BASELINE config 3's shape family (d=50): the small-n regime.
         import bench as bench_mod
 
         features, labels, x0 = bench_mod.make_blr_workload(n, dim=50)
@@ -54,7 +52,7 @@ def main(outdir="docs/traces", n="10000", impl="auto", config="mvn"):
             steps_per_call=10,
         )
     else:
-        from svgdcpp_tpu.utils.workloads import flagship_mvn
+        from svgdcpp_jax.utils.workloads import flagship_mvn
 
         mean, cov, x0 = flagship_mvn(n, dtype=np.float32)
         dim = 2
@@ -71,8 +69,7 @@ def main(outdir="docs/traces", n="10000", impl="auto", config="mvn"):
     state = svgd.make_state()
 
     # Warm up (compile) outside the trace.
-    out_state, _ = svgd._jit_run(state, 10)
-    np.asarray(out_state["coords"])  # host sync (block_until_ready lies here)
+    jax.block_until_ready(svgd._jit_run(state, 10))
 
     steps = 50
     with jax.profiler.trace(str(out)):
@@ -80,7 +77,7 @@ def main(outdir="docs/traces", n="10000", impl="auto", config="mvn"):
         st = state
         for _ in range(steps // 10):
             st, _ = svgd._jit_run(st, 10)
-        np.asarray(st["coords"])
+        jax.block_until_ready(st)
         dt = time.perf_counter() - t0
     per_step_ms = 1e3 * dt / steps
     summary = (
@@ -93,4 +90,7 @@ def main(outdir="docs/traces", n="10000", impl="auto", config="mvn"):
 
 
 if __name__ == "__main__":
+    from svgdcpp_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(*sys.argv[1:])

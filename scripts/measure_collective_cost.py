@@ -1,7 +1,7 @@
 """Isolate the collective (communication) cost of the sharded SVGD step.
 
-VERDICT r3 asked for a measured compute-vs-collective split on THIS box
-(the simulated 8-device mesh) instead of the cores/D ceiling guess: run the
+A measured compute-vs-collective split on the simulated 8-device CPU mesh
+(instead of a cores/D ceiling guess): run the
 identical shard_map step twice, once real and once with every cross-device
 collective stubbed to a local, shape/type-preserving surrogate, and report
 
@@ -46,8 +46,8 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-import svgdcpp_tpu as sv  # noqa: E402
-from svgdcpp_tpu.parallel import (  # noqa: E402
+import svgdcpp_jax as sv  # noqa: E402
+from svgdcpp_jax.parallel import (  # noqa: E402
     ShardedSVGD,
     ShardedSVGDConfig,
     make_particle_mesh,
@@ -85,7 +85,7 @@ def _stub_ppermute(x, axis_name, perm, **kw):
 def build(mode, n_devices):
     devices = jax.devices()[:n_devices]
     mesh = make_particle_mesh(devices)
-    from svgdcpp_tpu.utils.workloads import flagship_mvn
+    from svgdcpp_jax.utils.workloads import flagship_mvn
 
     n = N_PER_DEVICE * n_devices
     dim = 2

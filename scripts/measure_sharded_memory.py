@@ -1,9 +1,8 @@
 """Compiled per-device memory proof: ring vs gather sharded step.
 
-VERDICT r3: ring mode claims an O(n*m/D) per-device working set
-(parallel/ring.py) where gather mode materializes the full O(n*m) gathered
-coordinate/score buffers per device — asserted, never evidenced. This
-script compiles BOTH steps at a large-n shape on the 8-device simulated
+Ring mode claims an O(n*m/D) per-device working set (parallel/ring.py)
+where gather mode materializes the full O(n*m) gathered coordinate/score
+buffers per device. This script compiles BOTH steps at a large-n shape on the 8-device simulated
 mesh and records `compiled.memory_analysis()` (XLA's own buffer
 assignment): argument/output/temp bytes per device.
 
@@ -29,8 +28,8 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-import svgdcpp_tpu as sv  # noqa: E402
-from svgdcpp_tpu.parallel import (  # noqa: E402
+import svgdcpp_jax as sv  # noqa: E402
+from svgdcpp_jax.parallel import (  # noqa: E402
     ShardedSVGD,
     ShardedSVGDConfig,
     make_particle_mesh,
@@ -71,7 +70,7 @@ def main():
         json_path = sys.argv[sys.argv.index("--json") + 1]
     devices = jax.devices()
     mesh = make_particle_mesh(devices)
-    from svgdcpp_tpu.utils.workloads import flagship_mvn
+    from svgdcpp_jax.utils.workloads import flagship_mvn
 
     mean, cov, x0 = flagship_mvn(n, dtype=np.float32)
     lines = []

@@ -2,7 +2,7 @@
 
 `+ - * /` trees of pure Gaussian RBF kernels (the reference's composition
 operators, Kernel.hpp:55-223) flatten to signed sums of closed-form RBF
-terms; phi then runs on the MXU tile path instead of the generic VJP. These
+terms; phi then runs on the closed-form tile path instead of the generic VJP. These
 tests pin (1) the flattening rules, (2) phi equivalence against the
 explicit per-pair oracle, and (3) driver-level trajectory equality between
 the algebraic path and the generic path.
@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import svgdcpp_tpu as sv
-from svgdcpp_tpu.kernels.algebra import flatten_rbf_terms
-from svgdcpp_tpu.ops.phi import phi_generic, phi_rbf_terms
+import svgdcpp_jax as sv
+from svgdcpp_jax.kernels.algebra import flatten_rbf_terms
+from svgdcpp_jax.ops.phi import phi_generic, phi_rbf_terms
 
 
 def rbf(x0, p):
@@ -205,7 +205,7 @@ def test_driver_rbf_terms_rejects_custom_kernel(rng):
 
 def test_sharded_rbf_terms_matches_generic(rng):
     """Sharded algebraic path (gather + ring) == sharded generic VJP path."""
-    from svgdcpp_tpu.parallel import (
+    from svgdcpp_jax.parallel import (
         ShardedSVGD,
         ShardedSVGDConfig,
         make_particle_mesh,
@@ -240,7 +240,7 @@ def test_sharded_rbf_terms_matches_generic(rng):
 
 
 def test_sharded_rbf_terms_rejects_custom_kernel(rng):
-    from svgdcpp_tpu.parallel import (
+    from svgdcpp_jax.parallel import (
         ShardedSVGD,
         ShardedSVGDConfig,
         make_particle_mesh,
@@ -293,7 +293,7 @@ def test_hessian_slot_term_not_clamped(rng):
     the algebraic path must match the generic VJP path exactly (the
     quadratic form is legitimately negative; regression for the psd
     misclassification that clamped it)."""
-    from svgdcpp_tpu.kernels.algebra import flatten_rbf_terms, term_psd_flags
+    from svgdcpp_jax.kernels.algebra import flatten_rbf_terms, term_psd_flags
 
     gmm, x0 = _saddle_gmm_setup(rng)
     n, m = x0.shape
@@ -345,7 +345,7 @@ def test_single_kernel_hessian_blocked_not_clamped(rng):
     """Uncomposed RBF with HESSIAN scale on a non-log-concave model: the
     blocked/dense closed forms must match the generic path (latent clamp
     bug on indefinite P, independent of the algebra feature)."""
-    from svgdcpp_tpu.ops.phi import phi_rbf, phi_rbf_blocked
+    from svgdcpp_jax.ops.phi import phi_rbf, phi_rbf_blocked
 
     gmm, x0 = _saddle_gmm_setup(rng)
     n, m = x0.shape
@@ -379,7 +379,7 @@ def test_single_kernel_hessian_blocked_not_clamped(rng):
 
 
 def test_sharded_run_requires_iterations(rng):
-    from svgdcpp_tpu.parallel import ShardedSVGD, make_particle_mesh
+    from svgdcpp_jax.parallel import ShardedSVGD, make_particle_mesh
 
     n, m = 16, 2
     model = sv.MultivariateNormal(np.zeros(m), np.eye(m))
@@ -392,7 +392,7 @@ def test_sharded_run_requires_iterations(rng):
 
 
 def test_ksd_rejects_p_matrix_with_kernel(rng):
-    from svgdcpp_tpu.ops.ksd import ksd_rbf
+    from svgdcpp_jax.ops.ksd import ksd_rbf
 
     n, m = 16, 2
     model = sv.MultivariateNormal(np.zeros(m), np.eye(m))
@@ -445,42 +445,3 @@ def test_random_tree_three_way_consistency(seed):
             phi_rbf_terms(coords, scores, kernel.parameters, terms, row_tile=8)
         )
         np.testing.assert_allclose(got, expect, rtol=1e-8, atol=1e-12)
-
-
-def test_aniso_gate_tolerance_is_scale_relative(rng):
-    """Round-5 ADVICE fix: PD-ness classification must not depend on the
-    overall scale of the constant precision sum — a tiny-scale PD matrix
-    is PD, and scaling a PSD-gated composition cannot flip the verdict."""
-    import svgdcpp_tpu as sv
-    from svgdcpp_tpu.kernels.algebra import (
-        flatten_rbf_terms,
-        fused_aniso_terms_supported,
-    )
-
-    dim = 2
-    x0 = rng.normal(size=(16, dim)).astype(np.float32)
-
-    def const_kernel(scale_mat):
-        return sv.GaussianRBFKernel(
-            x0, sv.ScaleMethod.MEDIAN,
-            sv.MultivariateNormal(
-                np.zeros(dim, np.float32), np.eye(dim, dtype=np.float32)
-            ),
-        ) + sv.GaussianRBFKernel(
-            x0, sv.ScaleMethod.CONSTANT,
-            constant_scale=np.asarray(scale_mat, np.float32),
-        )
-
-    # tiny-scale PD constant term (eigs ~1e-13): rejected by the old
-    # absolute +/-1e-12 tolerance, PD at any scale
-    k_tiny = const_kernel(1e-13 * np.diag([1.0, 0.5]))
-    assert fused_aniso_terms_supported(
-        flatten_rbf_terms(k_tiny), k_tiny.adaptive_slots(), k_tiny.parameters
-    )
-
-    # an indefinite constant term stays rejected at any scale
-    for s in (1e-13, 1.0, 1e10):
-        k_bad = const_kernel(s * np.diag([1.0, -0.4]))
-        assert not fused_aniso_terms_supported(
-            flatten_rbf_terms(k_bad), k_bad.adaptive_slots(), k_bad.parameters
-        )

@@ -9,7 +9,7 @@ particles concentrate near the MLE p = k/n inside (0, 1).
 import numpy as np
 import pytest
 
-import svgdcpp_tpu as sv
+import svgdcpp_jax as sv
 
 
 def test_log_density_matches_closed_form():
@@ -77,7 +77,7 @@ def test_ctor_value_validation():
     -inf density with a finite boundary-pushing score."""
     import pytest
 
-    from svgdcpp_tpu.models.binomial_likelihood import BinomialLikelihood
+    from svgdcpp_jax.models.binomial_likelihood import BinomialLikelihood
 
     with pytest.raises(ValueError, match="successes"):
         BinomialLikelihood(trials=[5.0], successes=[7.0])

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import svgdcpp_tpu as sv
-from svgdcpp_tpu.models.bayesian_logistic_regression import (
+import svgdcpp_jax as sv
+from svgdcpp_jax.models.bayesian_logistic_regression import (
     make_synthetic_classification,
 )
 

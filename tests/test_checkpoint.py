@@ -2,8 +2,8 @@
 
 import numpy as np
 
-import svgdcpp_tpu as sv
-from svgdcpp_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+import svgdcpp_jax as sv
+from svgdcpp_jax.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
 def build(x0, iters):
@@ -63,7 +63,7 @@ def test_checkpoint_missing_key_raises(tmp_path, rng):
 
 def test_native_host_helpers(rng):
     """Native nth_element/median vs NumPy (utils/native.py)."""
-    from svgdcpp_tpu.utils.native import host_median, kth_element
+    from svgdcpp_jax.utils.native import host_median, kth_element
 
     v = rng.normal(size=10001)
     assert np.isclose(kth_element(v, 123), np.partition(v.copy(), 123)[123])
@@ -76,8 +76,8 @@ def test_native_host_helpers(rng):
 
 def test_native_log_writer_matches_python(tmp_path, rng):
     """Native and Python debug-log writers produce identical text."""
-    from svgdcpp_tpu.utils import logging as svlog
-    from svgdcpp_tpu.utils.native import native_available
+    from svgdcpp_jax.utils import logging as svlog
+    from svgdcpp_jax.utils.native import native_available
 
     T, n, m = 2, 3, 2
     logs = {
@@ -91,7 +91,7 @@ def test_native_log_writer_matches_python(tmp_path, rng):
     svlog.write_intermediate_matrices(str(p_native), logs)
 
     # Force the pure-Python path
-    import svgdcpp_tpu.utils.native as nat
+    import svgdcpp_jax.utils.native as nat
 
     orig = nat.write_intermediate_log_native
     nat.write_intermediate_log_native = lambda *a, **k: False
@@ -107,8 +107,8 @@ def test_native_log_writer_matches_python(tmp_path, rng):
 def test_cpp_oracle_cross_language_trajectory(rng):
     """Cross-language check: the independent C++ per-pair SVGD oracle and
     the JAX engine produce the same trajectory (f64, exact median)."""
-    import svgdcpp_tpu as sv
-    from svgdcpp_tpu.utils.native import cpp_oracle_mvn_rbf_adagrad, native_available
+    import svgdcpp_jax as sv
+    from svgdcpp_jax.utils.native import cpp_oracle_mvn_rbf_adagrad, native_available
 
     if not native_available():
         import pytest
@@ -146,7 +146,7 @@ def test_native_rebuilds_stale_library(tmp_path):
 
     import pytest
 
-    import svgdcpp_tpu.utils.native as nat
+    import svgdcpp_jax.utils.native as nat
 
     if not nat.native_available():
         pytest.skip("native toolchain unavailable")

@@ -14,13 +14,13 @@ def test_api_docs_generate(tmp_path):
     index = (out / "index.md").read_text()
     assert "SVGD" in index and "GaussianRBFKernel" in index
 
-    driver = (out / "svgdcpp_tpu_svgd.md").read_text()
+    driver = (out / "svgdcpp_jax_svgd.md").read_text()
     for sym in ("SVGDOptions", "class `SVGD", "update_kernel_parameters"):
         assert sym in driver, sym
     # CamelCase parity surface collapses into alias notes
     assert "CamelCase parity aliases" in driver
 
-    sharded = (out / "svgdcpp_tpu_parallel_sharded.md").read_text()
+    sharded = (out / "svgdcpp_jax_parallel_sharded.md").read_text()
     for sym in ("ShardedSVGD", "run_state", "ShardedSVGDConfig"):
         assert sym in sharded, sym
 

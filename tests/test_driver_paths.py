@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import svgdcpp_tpu as sv
+import svgdcpp_jax as sv
 
 
 def build(x0, model, kernel, opt, **extra):
@@ -59,25 +59,28 @@ def test_custom_model_hook_runs_eagerly(rng):
     )
 
 
-def test_pallas_phi_impl_through_driver(rng):
-    """phi_impl='pallas' (interpreter on CPU) matches the dense path."""
+@pytest.mark.parametrize("impl", ["fused_pallas", "fused_terms_pallas"])
+def test_explicit_pallas_impl_raises_off_gpu(rng, impl):
+    """An explicit Pallas impl off the GPU raises instead of silently
+    running the Pallas interpreter."""
     x0, model, kernel = mvn_parts(rng, n=24)
-    svgd_p = build(
-        np.asarray(x0, np.float32), model, kernel, sv.AdaGrad(2, 24, 0.1),
-        phi_impl="pallas",
-    )
-    svgd_p.initialize()
-    res_p = np.asarray(svgd_p.run())
+    if impl == "fused_terms_pallas":
+        kernel = kernel + sv.GaussianRBFKernel(
+            x0, sv.ScaleMethod.CONSTANT, constant_scale=0.5 * np.eye(2)
+        )
+    drv = build(x0, model, kernel, sv.AdaGrad(2, 24, 0.1), phi_impl=impl)
+    with pytest.raises(ValueError, match="GPU kernel"):
+        drv.initialize()
 
-    model2 = sv.MultivariateNormal(np.zeros(2), np.eye(2))
-    kernel2 = sv.GaussianRBFKernel(x0, sv.ScaleMethod.MEDIAN, model2)
-    svgd_d = build(
-        np.asarray(x0, np.float32), model2, kernel2, sv.AdaGrad(2, 24, 0.1),
-        phi_impl="dense",
-    )
-    svgd_d.initialize()
-    res_d = np.asarray(svgd_d.run())
-    np.testing.assert_allclose(res_p, res_d, rtol=2e-4, atol=1e-5)
+
+@pytest.mark.parametrize(
+    "impl", ["pallas", "fused_aniso_terms_pallas", "triton", ""]
+)
+def test_unknown_phi_impl_raises(rng, impl):
+    x0, model, kernel = mvn_parts(rng, n=24)
+    drv = build(x0, model, kernel, sv.AdaGrad(2, 24, 0.1), phi_impl=impl)
+    with pytest.raises(ValueError, match="unknown phi_impl"):
+        drv.initialize()
 
 
 def test_rmsprop_end_to_end(rng):
@@ -166,7 +169,7 @@ def test_warm_median_method_accepted_at_construction(rng):
 
 def test_initialize_distributed_single_process_noop():
     """Single-process call is a no-op returning devices (review finding)."""
-    from svgdcpp_tpu.parallel import initialize_distributed
+    from svgdcpp_jax.parallel import initialize_distributed
 
     devices = initialize_distributed()
     assert len(devices) >= 1
@@ -388,95 +391,84 @@ def test_optimizer_state_sharding_declaration():
     assert any(leaves_flags) and not all(leaves_flags)
 
 
-def test_tpu_fused_auto_threshold(rng, monkeypatch):
-    """On a TPU backend, phi_impl='auto' prefers the fused Mosaic sweep
-    from n > TPU_FUSED_MIN_PARTICLES (the rebuilt kernel beats dense 7x at
-    n=512 — docs/perf.md); other backends keep the 1024 dense cutoff.
-    Selection-only test: initialize() resolves the impl without executing
-    the (CPU-incompatible) compiled Mosaic path."""
-    import svgdcpp_tpu.svgd as svgd_mod
+@pytest.mark.parametrize(
+    "backend, n, kind, expected",
+    [
+        ("gpu", 1030, "rbf", "fused_pallas"),
+        ("gpu", 1030, "sum", "fused_terms_pallas"),
+        ("gpu", 1030, "div", "fused_terms_pallas"),
+        ("gpu", 1024, "rbf", "dense"),
+        ("gpu", 1024, "sum", "rbf_terms"),
+        ("cpu", 1030, "rbf", "fused"),
+        ("cpu", 1030, "sum", "fused_terms"),
+        ("cpu", 1030, "div", "fused_terms"),
+        ("cpu", 1024, "rbf", "dense"),
+        ("rocm", 1030, "rbf", "fused"),
+    ],
+)
+def test_fused_auto_selection_table(rng, monkeypatch, backend, n, kind,
+                                    expected):
+    """phi_impl='auto' reads one table: the Pallas sweep on a GPU backend
+    (division terms included — the kernel masks padding, so no sign gate),
+    the XLA sweep elsewhere, the exact dense / per-term paths at n <= 1024.
+    Selection only: initialize() resolves the impl without running it."""
+    import svgdcpp_jax.svgd as svgd_mod
 
-    def impl_for(n, backend):
-        monkeypatch.setattr(
-            svgd_mod.jax, "default_backend", lambda: backend
-        )
-        x0 = rng.normal(size=(n, 2))
-        model = sv.MultivariateNormal(np.zeros(2), np.eye(2))
-        kernel = sv.GaussianRBFKernel(x0, sv.ScaleMethod.MEDIAN, model)
-        drv = build(x0, model, kernel, sv.AdaGrad(2, n, 0.1))
-        drv.initialize()
-        return drv._phi_impl
-
-    assert impl_for(256, "tpu") == "dense"   # at the threshold: parity zone
-    assert impl_for(260, "tpu") == "fused_pallas"
-    assert impl_for(260, "cpu") == "dense"   # other backends keep 1024
-    assert impl_for(1030, "cpu") == "fused"
-
-    def impl_for_composed(n, backend, positive):
-        monkeypatch.setattr(
-            svgd_mod.jax, "default_backend", lambda: backend
-        )
-        x0 = rng.normal(size=(n, 2))
-        model = sv.MultivariateNormal(np.zeros(2), np.eye(2))
-        med = sv.GaussianRBFKernel(x0, sv.ScaleMethod.MEDIAN, model)
-        const = sv.GaussianRBFKernel(
-            x0, sv.ScaleMethod.CONSTANT, constant_scale=0.5 * np.eye(2)
-        )
-        kernel = (med + const) if positive else (med / const)
-        drv = build(x0, model, kernel, sv.AdaGrad(2, n, 0.1))
-        drv.initialize()
-        return drv._phi_impl
-
-    # Composed kernels: the lowered TPU threshold applies ONLY when the
-    # Mosaic terms sweep is actually selected. A division term (gamma not
-    # statically positive) must NOT be rerouted to the XLA fused_terms
-    # fallback below the 1024 cutoff — that would silently trade the exact
-    # same-step median for lag-1 with no measured win.
-    assert impl_for_composed(260, "tpu", positive=True) == "fused_terms_pallas"
-    assert impl_for_composed(260, "tpu", positive=False) == "rbf_terms"
-    assert impl_for_composed(1030, "tpu", positive=False) == "fused_terms"
-    assert impl_for_composed(260, "cpu", positive=True) == "rbf_terms"
+    monkeypatch.setattr(svgd_mod.jax, "default_backend", lambda: backend)
+    x0 = rng.normal(size=(n, 2))
+    model = sv.MultivariateNormal(np.zeros(2), np.eye(2))
+    kernel = sv.GaussianRBFKernel(x0, sv.ScaleMethod.MEDIAN, model)
+    const = sv.GaussianRBFKernel(
+        x0, sv.ScaleMethod.CONSTANT, constant_scale=0.5 * np.eye(2)
+    )
+    kernel = {"rbf": kernel, "sum": kernel + const, "div": kernel / const}[
+        kind
+    ]
+    drv = build(x0, model, kernel, sv.AdaGrad(2, n, 0.1))
+    drv.initialize()
+    assert drv._phi_impl == expected
 
 
-def test_driver_fused_sym_option(rng, monkeypatch):
-    """SVGDOptions.fused_sym=False (round-5 ADVICE fix) forces the cross
-    sweep on the no-mesh Mosaic path without touching numerics: the sym
-    impls must not be reached, and the trajectory matches auto."""
-    import numpy as np
+@pytest.mark.parametrize("kind", ["rbf", "sum", "div"])
+def test_driver_pallas_path_matches_xla_sweep(rng, monkeypatch, kind):
+    """The driver's Pallas fused path (selected as on a GPU, the kernel in
+    interpret mode) follows the XLA fused sweep's trajectory."""
+    import functools
 
-    import svgdcpp_tpu as sv
-    import svgdcpp_tpu.ops.pallas_phi as pp
+    import svgdcpp_jax.ops.pallas_phi as pp
+    import svgdcpp_jax.svgd as svgd_mod
 
-    n, dim, iters = 2048, 2, 3
-    x0 = rng.normal(size=(n, dim)).astype(np.float32) * 2
+    n, iters = 64, 3
+    x0 = rng.normal(size=(n, 2)).astype(np.float32)
 
-    def run(fused_sym, forbid_sym):
-        if forbid_sym:
-            def boom(*a, **k):
-                raise AssertionError("sym impl reached with fused_sym=False")
-
-            monkeypatch.setattr(pp, "_phi_rbf_fused_pallas_sym_impl", boom)
-            monkeypatch.setattr(
-                pp, "_phi_rbf_fused_pallas_sympanel_impl", boom
-            )
+    def run(impl):
         model = sv.MultivariateNormal(
-            np.zeros(dim, np.float32), np.eye(dim, dtype=np.float32)
+            np.zeros(2, np.float32), np.eye(2, dtype=np.float32)
         )
         kernel = sv.GaussianRBFKernel(x0, sv.ScaleMethod.MEDIAN, model)
-        svgd = sv.SVGD(
+        const = sv.GaussianRBFKernel(
+            x0, sv.ScaleMethod.CONSTANT,
+            constant_scale=0.3 * np.eye(2, dtype=np.float32),
+        )
+        kernel = {"rbf": kernel, "sum": kernel + const,
+                  "div": kernel / const}[kind]
+        drv = sv.SVGD(
             sv.SVGDOptions(
-                dimension=dim, num_iterations=iters,
+                dimension=2, num_iterations=iters,
                 coordinate_matrix=x0.copy(), kernel=kernel, model=model,
-                optimizer=sv.AdaGrad(dim, n, 0.1),
-                phi_impl="fused_pallas", fused_sym=fused_sym,
+                optimizer=sv.AdaGrad(2, n, 0.1), phi_impl=impl,
             )
         )
-        svgd.initialize()
-        out = np.asarray(svgd.run())
-        monkeypatch.undo()
-        return out
+        with monkeypatch.context() as mp:
+            mp.setattr(svgd_mod.jax, "default_backend", lambda: "gpu")
+            drv.initialize()
+        return np.asarray(drv.run())
 
-    out_cross = run(False, forbid_sym=True)
-    out_auto = run(None, forbid_sym=False)
-    assert np.isfinite(out_cross).all()
-    np.testing.assert_allclose(out_cross, out_auto, rtol=5e-3, atol=5e-4)
+    xla = run("fused" if kind == "rbf" else "fused_terms")
+    monkeypatch.setattr(
+        pp, "phi_rbf_terms_fused_pallas",
+        functools.partial(pp.phi_rbf_terms_fused_pallas, interpret=True),
+    )
+    pallas = run("fused_pallas" if kind == "rbf" else "fused_terms_pallas")
+    assert np.isfinite(pallas).all()
+    np.testing.assert_allclose(pallas, xla, rtol=1e-5, atol=1e-5)

@@ -1,7 +1,7 @@
 """True f32 (non-x64) production-regime tests.
 
 The main suite enables jax_enable_x64 for oracle parity, which changes
-scalar promotion rules; the TPU perf path runs without it. This lane runs a
+scalar promotion rules; the GPU perf path runs without it. This lane runs a
 small subprocess with x64 OFF and validates the f32 behavior end-to-end:
 warm/hybrid median accuracy (including off-origin clusters), a converging
 SVGD run on the warm path, and dtype stability of the scan carry.
@@ -26,8 +26,8 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-import svgdcpp_tpu as sv
-from svgdcpp_tpu.ops.median import pairwise_distance_median_hybrid
+import svgdcpp_jax as sv
+from svgdcpp_jax.ops.median import pairwise_distance_median_hybrid
 
 out = {}
 

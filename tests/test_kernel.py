@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svgdcpp_tpu import DimensionMismatchError, Kernel, UnsetError
+from svgdcpp_jax import DimensionMismatchError, Kernel, UnsetError
 
 
 def sq_exp_fn(x, params, location):
@@ -180,7 +180,7 @@ def test_update_kernel_clears_composed_structure(rng):
     compose record and the old adaptive slots — the stale slot list would
     make the driver refill (or index past) the new function's parameters
     every step."""
-    import svgdcpp_tpu as sv
+    import svgdcpp_jax as sv
 
     x0 = rng.normal(size=(12, 2))
     model = sv.MultivariateNormal(np.zeros(2), np.eye(2))

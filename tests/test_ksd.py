@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import svgdcpp_tpu as sv
-from svgdcpp_tpu.ops.ksd import ksd_rbf, ksd_squared_rbf
+import svgdcpp_jax as sv
+from svgdcpp_jax.ops.ksd import ksd_rbf, ksd_squared_rbf
 
 
 def u_p_autodiff(x, y, s_fn, p_matrix):
@@ -71,8 +71,8 @@ def test_ksd_decreases_along_svgd(rng):
 def test_ksd_terms_matches_autodiff_oracle(rng):
     """Composed-kernel KSD (signed sum of per-term closed forms) == the
     autodiff Stein-kernel oracle through the composed kernel function."""
-    from svgdcpp_tpu.kernels.algebra import flatten_rbf_terms
-    from svgdcpp_tpu.ops.ksd import ksd_squared_rbf_terms
+    from svgdcpp_jax.kernels.algebra import flatten_rbf_terms
+    from svgdcpp_jax.ops.ksd import ksd_squared_rbf_terms
 
     n, m = 12, 2
     coords = jnp.asarray(rng.normal(size=(n, m)))
@@ -153,7 +153,7 @@ def test_ksd_rbf_kernel_argument(rng):
 def test_ksd_generic_matches_closed_form_rbf(rng):
     """The autodiff Stein kernel (ksd_squared_generic) against the
     closed-form RBF KSD, anisotropic P, both statistics."""
-    from svgdcpp_tpu.ops.ksd import ksd_squared_generic
+    from svgdcpp_jax.ops.ksd import ksd_squared_generic
 
     n, m = 24, 3
     coords = jnp.asarray(rng.normal(size=(n, m)))
@@ -181,7 +181,7 @@ def test_ksd_generic_matches_closed_form_rbf(rng):
 def test_ksd_generic_matches_terms_on_composed(rng):
     """Generic autodiff KSD on a composed (sum) kernel function equals the
     signed closed-form term sum."""
-    from svgdcpp_tpu.ops.ksd import ksd_squared_generic, ksd_squared_rbf
+    from svgdcpp_jax.ops.ksd import ksd_squared_generic, ksd_squared_rbf
 
     n, m = 20, 2
     coords = jnp.asarray(rng.normal(size=(n, m)))
@@ -207,9 +207,9 @@ def test_ksd_generic_matches_terms_on_composed(rng):
 
 def test_ksd_huge_n_no_int32_overflow():
     """The n^2 normalization must not overflow int32 weak typing when
-    x64 is disabled (n > ~46k on the TPU path). Trace-only check via
+    x64 is disabled (n > ~46k on the f32 device path). Trace-only check via
     eval_shape on a non-x64 closure — no O(n^2) compute."""
-    from svgdcpp_tpu.ops.ksd import ksd_squared_rbf
+    from svgdcpp_jax.ops.ksd import ksd_squared_rbf
 
     n, m = 100_000, 2
     coords = jax.ShapeDtypeStruct((n, m), jnp.float32)

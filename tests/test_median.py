@@ -9,9 +9,9 @@ averaging (:224-245), the log(n)/median^2 scale (:187), the Hessian scale
 import numpy as np
 import pytest
 
-from svgdcpp_tpu import GaussianRBFKernel, MultivariateNormal, ScaleMethod, UnsetError
-from svgdcpp_tpu.kernels.gaussian_rbf import hessian_scale, median_scale
-from svgdcpp_tpu.ops.median import (
+from svgdcpp_jax import GaussianRBFKernel, MultivariateNormal, ScaleMethod, UnsetError
+from svgdcpp_jax.kernels.gaussian_rbf import hessian_scale, median_scale
+from svgdcpp_jax.ops.median import (
     median_exact,
     pairwise_distance_median_exact,
     pairwise_distance_median_histogram,
@@ -119,7 +119,7 @@ def test_constant_scale(rng):
 
 @pytest.mark.parametrize("n", [300, 1111])
 def test_hybrid_median_matches_exact(rng, n):
-    from svgdcpp_tpu.ops.median import pairwise_distance_median_hybrid
+    from svgdcpp_jax.ops.median import pairwise_distance_median_hybrid
 
     coords = rng.normal(size=(n, 3))
     exact = float(pairwise_distance_median_exact(coords))
@@ -134,7 +134,7 @@ def test_hybrid_median_matches_exact(rng, n):
 def test_hybrid_fallback_on_bad_bracket(rng):
     """Force the bracket check to fail and confirm the bisect fallback."""
     import jax.numpy as jnp
-    from svgdcpp_tpu.ops.median import (
+    from svgdcpp_jax.ops.median import (
         _refine_two_ranks,
         count_le_cross,
         pairwise_distance_median_exact,
@@ -155,7 +155,7 @@ def test_hybrid_fallback_on_bad_bracket(rng):
 def test_warm_median_tracks_moving_particles(rng):
     """Warm-started selection stays exact across simulated SVGD steps."""
     import jax.numpy as jnp
-    from svgdcpp_tpu.ops.median import pairwise_distance_median_warm
+    from svgdcpp_jax.ops.median import pairwise_distance_median_warm
 
     n = 256
     coords = rng.normal(size=(n, 3))
@@ -189,7 +189,7 @@ def test_warm_median_fallback_when_bracket_stale(rng):
     """A wildly wrong bracket with zero claimed displacement must still
     produce the right answer (containment check -> cold path)."""
     import jax.numpy as jnp
-    from svgdcpp_tpu.ops.median import pairwise_distance_median_warm
+    from svgdcpp_jax.ops.median import pairwise_distance_median_warm
 
     coords = rng.normal(size=(128, 2))
     med, *_ = pairwise_distance_median_warm(
@@ -202,12 +202,12 @@ def test_warm_median_fallback_when_bracket_stale(rng):
 
 
 def test_auto_row_tile_clamps():
-    from svgdcpp_tpu.ops.pairwise import auto_row_tile
+    from svgdcpp_jax.ops.pairwise import auto_row_tile
 
     assert auto_row_tile(10_000, 1024) == 1024  # fits the budget
     assert auto_row_tile(1_000_000, 1024) == 64  # 256MB / (1M * 4B) = 64
     assert auto_row_tile(10_000_000, 1024) == 8  # floor
-    assert auto_row_tile(100, 13) == 8  # rounds to sublane multiple
+    assert auto_row_tile(100, 13) == 8  # rounds to a multiple of 8
 
 
 def test_warm_median_cold_start_small_scale(rng):
@@ -215,7 +215,7 @@ def test_warm_median_cold_start_small_scale(rng):
     squared bracket would contain the median (review finding: particles
     with median < 1 were 50% off on the first warm step)."""
     import jax.numpy as jnp
-    from svgdcpp_tpu.ops.median import pairwise_distance_median_warm
+    from svgdcpp_jax.ops.median import pairwise_distance_median_warm
 
     coords = rng.normal(size=(300, 2)) * 0.1  # median << 1
     med, lo1, hi1, lo2, hi2 = pairwise_distance_median_warm(
@@ -243,7 +243,7 @@ class TestOffCenterF32:
         )
 
     def test_bisect_median_off_center(self, rng):
-        from svgdcpp_tpu.ops.median import pairwise_distance_median_bisect
+        from svgdcpp_jax.ops.median import pairwise_distance_median_bisect
 
         coords = self._cluster(rng)
         exact = np_pairwise_median(coords.astype(np.float64))
@@ -251,7 +251,7 @@ class TestOffCenterF32:
         assert abs(approx - exact) <= 1e-3 * exact, (approx, exact)
 
     def test_hybrid_median_off_center(self, rng):
-        from svgdcpp_tpu.ops.median import pairwise_distance_median_hybrid
+        from svgdcpp_jax.ops.median import pairwise_distance_median_hybrid
 
         coords = self._cluster(rng)
         exact = np_pairwise_median(coords.astype(np.float64))
@@ -263,7 +263,7 @@ class TestOffCenterF32:
 
     def test_phi_blocked_off_center_large_m(self, rng):
         """Gram-branch phi (m > 4) with centered coords matches f64."""
-        from svgdcpp_tpu.ops.phi import phi_rbf_blocked
+        from svgdcpp_jax.ops.phi import phi_rbf_blocked
 
         n, m = 128, 6
         coords64 = 100.0 + 1e-2 * rng.normal(size=(n, m))
@@ -289,7 +289,7 @@ def test_hybrid_fallback_end_to_end(rng, monkeypatch):
     the correct median via its bisection fallback (review finding: the
     fallback closure was only tested via the validity flag)."""
     import jax.numpy as jnp
-    import svgdcpp_tpu.ops.median as med
+    import svgdcpp_jax.ops.median as med
 
     coords = rng.normal(size=(700, 3))
     exact = np_pairwise_median(coords)
@@ -305,7 +305,7 @@ def test_warm_full_fallback_end_to_end(rng):
     """warm_median_select with no sampler and an invalid bracket must take
     the full bisection and return a correct, containing bracket."""
     import jax.numpy as jnp
-    from svgdcpp_tpu.ops.median import count_le_cross, warm_median_select
+    from svgdcpp_jax.ops.median import count_le_cross, warm_median_select
 
     coords = rng.normal(size=(256, 2))
     centered = coords - coords.mean(0)
@@ -328,7 +328,7 @@ def test_count_le_cross_off_center_f32(rng):
     exact median stay correct for an offset-1e4 f32 cluster — regression for
     the uncentered Gram identity destroying the sharded/warm medians."""
     import jax.numpy as jnp
-    from svgdcpp_tpu.ops.median import count_le_cross
+    from svgdcpp_jax.ops.median import count_le_cross
 
     n = 400
     coords = (rng.normal(size=(n, 2)) + 1e4).astype(np.float32)
@@ -345,7 +345,7 @@ def test_count_le_cross_off_center_f32(rng):
 
 def test_histogram_median_off_center_f32(rng):
     """The scatter-histogram (parity) median centers like every other path."""
-    from svgdcpp_tpu.ops.median import pairwise_distance_median_histogram
+    from svgdcpp_jax.ops.median import pairwise_distance_median_histogram
 
     coords = (rng.normal(size=(300, 2)) + 1e4).astype(np.float32)
     exact = np_pairwise_median(coords.astype(np.float64))
@@ -366,7 +366,7 @@ def test_hybrid_median_two_balanced_clusters(rng):
     """The median of two balanced clusters sits in the distance gap: a
     joint-hull refinement stalls there (8.6% bias measured before the
     per-rank fix); per-rank brackets must stay near-exact."""
-    from svgdcpp_tpu.ops.median import pairwise_distance_median_hybrid
+    from svgdcpp_jax.ops.median import pairwise_distance_median_hybrid
 
     coords = _two_clusters(rng)
     exact = np_pairwise_median(coords)
@@ -378,7 +378,7 @@ def test_warm_median_tracks_two_clusters(rng):
     """Warm per-rank tracking across steps on bimodal data: each bracket
     refines inside its own cluster mode; the gap never stalls it."""
     import jax.numpy as jnp
-    from svgdcpp_tpu.ops.median import pairwise_distance_median_warm
+    from svgdcpp_jax.ops.median import pairwise_distance_median_warm
 
     coords = _two_clusters(rng, n_half=256)
     lo1 = lo2 = jnp.asarray(0.0)
@@ -407,8 +407,8 @@ def test_fused_median_two_clusters_driver(rng):
     """End-to-end fused sweep on a balanced two-mode GMM: the lag-1 median
     must track the exact median within the movement bound + per-rank
     resolution (the old joint hull held a permanent gap-scale bias)."""
-    import svgdcpp_tpu as sv
-    from svgdcpp_tpu.ops.median import pairwise_distance_median_exact
+    import svgdcpp_jax as sv
+    from svgdcpp_jax.ops.median import pairwise_distance_median_exact
     import jax.numpy as jnp
 
     n, dim = 600, 2
@@ -452,7 +452,7 @@ def test_hessian_scale_honors_score_override(rng):
     log(density) underflows to -inf (CLAUDE.md: all hot paths route scores
     through the override)."""
     import jax.numpy as jnp
-    from svgdcpp_tpu.models.model import Model
+    from svgdcpp_jax.models.model import Model
 
     class StableGaussian(Model):
         def __init__(self):

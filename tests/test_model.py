@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svgdcpp_tpu import (
+from svgdcpp_jax import (
     DimensionMismatchError,
     Model,
     MultivariateNormal,

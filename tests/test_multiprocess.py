@@ -18,8 +18,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import svgdcpp_tpu as sv
-from svgdcpp_tpu.parallel import ShardedSVGD, ShardedSVGDConfig, make_particle_mesh
+import svgdcpp_jax as sv
+from svgdcpp_jax.parallel import ShardedSVGD, ShardedSVGDConfig, make_particle_mesh
 
 
 def _free_port() -> int:

@@ -8,7 +8,7 @@ a NumPy transcription of the reference's Eigen expressions
 import numpy as np
 import pytest
 
-from svgdcpp_tpu import AdaGrad, Adam, RMSProp, SVGDError
+from svgdcpp_jax import AdaGrad, Adam, RMSProp, SVGDError
 
 DIM, N = 3, 5
 LR, EPS = 0.1, 1e-8
@@ -87,7 +87,7 @@ def test_optax_adapter_runs_svgd(rng):
     """OptaxOptimizer drives a full SVGD run and converges."""
     import optax
 
-    import svgdcpp_tpu as sv
+    import svgdcpp_jax as sv
 
     dim, n = 2, 16
     model = sv.MultivariateNormal(np.array([1.0, -1.0]), 0.5 * np.eye(2))
@@ -110,7 +110,7 @@ def test_optax_sgd_matches_plain_ascent(rng):
     """optax.sgd(lr) increment == lr * phi (sign convention check)."""
     import optax
 
-    from svgdcpp_tpu.optimizers.optax_adapter import OptaxOptimizer
+    from svgdcpp_jax.optimizers.optax_adapter import OptaxOptimizer
 
     opt = OptaxOptimizer(optax.sgd(0.05), 2, 4)
     state = opt.init(np.float64)
@@ -124,7 +124,7 @@ def test_optax_params_dependent_transform(rng):
     current coords threaded through step(state, grad, params)."""
     import optax
 
-    import svgdcpp_tpu as sv
+    import svgdcpp_jax as sv
 
     dim, n = 2, 16
     model = sv.MultivariateNormal(np.array([1.0, -1.0]), 0.5 * np.eye(2))
@@ -143,7 +143,7 @@ def test_optax_params_dependent_transform(rng):
     assert np.isfinite(out).all()
 
     # the decay term actually depends on params: same grad, different params
-    from svgdcpp_tpu.optimizers.optax_adapter import OptaxOptimizer
+    from svgdcpp_jax.optimizers.optax_adapter import OptaxOptimizer
 
     opt = OptaxOptimizer(optax.add_decayed_weights(1e-2), 2, 4)
     state = opt.init(np.float32)

@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from svgdcpp_tpu.kernels.gaussian_rbf import rbf_kernel_fn
-from svgdcpp_tpu.ops.phi import (
+from svgdcpp_jax.kernels.gaussian_rbf import rbf_kernel_fn
+from svgdcpp_jax.ops.phi import (
     phi_generic,
     phi_generic_cross,
     phi_rbf,

@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-import svgdcpp_tpu as sv
-from svgdcpp_tpu.ops.median import pairwise_distance_median_exact
-from svgdcpp_tpu.ops.phi import phi_rbf
-from svgdcpp_tpu.parallel import (
+import svgdcpp_jax as sv
+from svgdcpp_jax.ops.median import pairwise_distance_median_exact
+from svgdcpp_jax.ops.phi import phi_rbf
+from svgdcpp_jax.parallel import (
     ShardedSVGD,
     ShardedSVGDConfig,
     make_particle_mesh,
@@ -46,7 +46,7 @@ def test_sharded_median_matches_exact(mesh, rng):
 
 
 def test_sharded_phi_matches_dense(mesh, rng):
-    from svgdcpp_tpu.ops.phi import phi_rbf_cross
+    from svgdcpp_jax.ops.phi import phi_rbf_cross
 
     n, m = 40, 3
     coords = jnp.asarray(rng.normal(size=(n, m)))
@@ -181,7 +181,7 @@ def test_gspmd_mesh_option(mesh, rng):
 
 
 def test_ring_phi_matches_dense(mesh, rng):
-    from svgdcpp_tpu.parallel.ring import ring_phi_rbf
+    from svgdcpp_jax.parallel.ring import ring_phi_rbf
 
     n, m = 40, 3
     coords = jnp.asarray(rng.normal(size=(n, m)))
@@ -201,7 +201,7 @@ def test_ring_phi_matches_dense(mesh, rng):
 
 
 def test_ring_median_matches_exact(mesh, rng):
-    from svgdcpp_tpu.parallel.ring import ring_pairwise_median
+    from svgdcpp_jax.parallel.ring import ring_pairwise_median
 
     coords = jnp.asarray(rng.normal(size=(64, 3)))
     axis = mesh.axis_names[0]
@@ -314,8 +314,8 @@ def test_gspmd_mesh_with_warm_median(mesh, rng):
 def test_ring_phi_off_center_f32(mesh, rng):
     """Ring phi with global-mean centering stays accurate for f32 clusters
     far from the origin (review finding: 41x relative error before)."""
-    from svgdcpp_tpu.ops.phi import phi_rbf
-    from svgdcpp_tpu.parallel.ring import ring_phi_rbf
+    from svgdcpp_jax.ops.phi import phi_rbf
+    from svgdcpp_jax.parallel.ring import ring_phi_rbf
 
     n, m = 64, 2
     coords64 = np.array([50.0, -30.0]) + 1e-3 * rng.normal(size=(n, m))
@@ -560,7 +560,7 @@ def test_fused_phi_config_validation():
 
 def test_sharded_checkpoint_resume(mesh, rng, tmp_path):
     """Sharded state round-trips through save/restore with sharding kept."""
-    from svgdcpp_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from svgdcpp_jax.utils.checkpoint import restore_checkpoint, save_checkpoint
 
     n, dim = 16, 2
     x0 = rng.normal(size=(n, dim)) * 2

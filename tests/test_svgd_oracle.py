@@ -10,7 +10,7 @@ the framework runs the whole 15 iterations inside one jitted lax.scan.
 import numpy as np
 import pytest
 
-import svgdcpp_tpu as sv
+import svgdcpp_jax as sv
 
 DIM, N_PARTICLES, N_ITER = 2, 10, 15
 LOWER = np.array([-1.0, -1.0])
@@ -243,7 +243,7 @@ def test_phi_impls_agree(rng, impl):
 def test_blocked_gram_branch_large_m(rng):
     """m > 4 routes the blocked phi through the Gram-identity branch; it
     must agree with the dense path."""
-    from svgdcpp_tpu.ops.phi import phi_rbf, phi_rbf_blocked
+    from svgdcpp_jax.ops.phi import phi_rbf, phi_rbf_blocked
 
     n, m = 30, 6
     coords = np.asarray(rng.normal(size=(n, m)))
